@@ -1,6 +1,6 @@
 """Runnable tour of the framework: every preset chain on synthetic data.
 
-    python examples/quickstart.py          # CPU (8 virtual devices) or TPU
+    python examples/quickstart.py          # CPU (8 virtual devices) or a GPU
 """
 
 import os
@@ -16,7 +16,7 @@ if os.environ.get("RSP_FORCE_CPU", "1") == "1":
 
 import numpy as np
 
-import rsp_chains_tpu as rsp
+import rsp_chains as rsp
 
 
 def main():
@@ -85,7 +85,7 @@ def main():
     print("2-D compiles:", run2d._cache_size())
 
     # 5. served loop: framed bytes through the TCP server
-    from rsp_chains_tpu.io.server import ChainServer, request_frames
+    from rsp_chains.io.server import ChainServer, request_frames
 
     with ChainServer(chain.jit(), rt, frame_len=1024, log2_fft_size=10) as srv:
         results = request_frames("127.0.0.1", srv.port, [iq, iq * 0.5])

@@ -20,7 +20,7 @@ def _setup(port, pid):
 
     jax.config.update("jax_platforms", "cpu")
 
-    from rsp_chains_tpu.parallel.multihost import initialize_cluster
+    from rsp_chains.parallel.multihost import initialize_cluster
 
     initialize_cluster(coordinator_address=f"127.0.0.1:{port}",
                        num_processes=2, process_id=pid)
@@ -39,12 +39,12 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         CfarConfig, ChainConfig, FftConfig, RuntimeConfig, fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.cplx import C
-    from rsp_chains_tpu.golden import three_tone_signal
-    from rsp_chains_tpu.parallel.multihost import (
+    from rsp_chains.cplx import C
+    from rsp_chains.golden import three_tone_signal
+    from rsp_chains.parallel.multihost import (
         make_pod_mesh, pod_spec, shard_cpi_stream,
     )
 
@@ -115,12 +115,12 @@ def main_stream(port, pid, outdir):
 
     import numpy as np
 
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         CfarConfig, ChainConfig, FftConfig, RuntimeConfig, fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.golden import three_tone_signal
-    from rsp_chains_tpu.io.cpi import load_state
-    from rsp_chains_tpu.parallel.multihost import (
+    from rsp_chains.golden import three_tone_signal
+    from rsp_chains.io.cpi import load_state
+    from rsp_chains.parallel.multihost import (
         PodStreamingPipeline, make_pod_mesh,
     )
 

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rsp_chains_tpu.ops.beamform import beamform, fft_beamform, ula_steering
+from rsp_chains.ops.beamform import beamform, fft_beamform, ula_steering
 
 
 def _plane_wave(c, t, angle, rng, snr=10.0):

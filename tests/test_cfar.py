@@ -6,15 +6,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu.configs import (
+from rsp_chains.configs import (
     CfarAlgorithm,
     CfarConfig,
     CfarMode,
     CfarVariant,
     RuntimeConfig,
 )
-from rsp_chains_tpu.ops.cfar import cfar_op
-from rsp_chains_tpu.golden import cfar_golden
+from rsp_chains.ops.cfar import cfar_op
+from rsp_chains.golden import cfar_golden
 
 
 def _mag(rng, n=256):
@@ -182,7 +182,7 @@ def test_runtime_validation_requires():
 
 def test_wrap_edge_policy_matches_golden(rng):
     """EdgePolicy.WRAP: circular windows (spectrum treated as periodic)."""
-    from rsp_chains_tpu.configs import EdgePolicy
+    from rsp_chains.configs import EdgePolicy
 
     mag = _mag(rng)
     w, g = 16, 2
@@ -206,7 +206,7 @@ def test_wrap_edge_policy_matches_golden(rng):
 
 def test_reflect_edge_policy_matches_golden(rng):
     """EdgePolicy.REFLECT: windows mirror at the frame edges."""
-    from rsp_chains_tpu.configs import EdgePolicy
+    from rsp_chains.configs import EdgePolicy
 
     mag = _mag(rng)
     w, g = 16, 2
@@ -247,16 +247,21 @@ def test_guard_window_clamped_to_elaborated_max(rng):
     np.testing.assert_array_equal(np.asarray(out_big.threshold),
                                   np.asarray(out_max.threshold))
 
-    from rsp_chains_tpu.kernels.cfar_pallas import fused_mag_cfar
-    from rsp_chains_tpu.cplx import C
+    # the same clamp through a chain's mag+CFAR tail stages
+    from rsp_chains.chain import Chain
+    from rsp_chains.configs import ChainConfig, FftConfig
+    from rsp_chains.cplx import C
+    from rsp_chains.presets import tail_stages
 
+    ccfg = ChainConfig(fft=FftConfig(max_size=128), cfar=cfg)
+    tail = Chain(ccfg, tail_stages(ccfg)).jit()
     spec = C(jnp.asarray(mag.reshape(2, 128)), jnp.zeros((2, 128), jnp.float32))
     rt_m = RuntimeConfig.make(fft_size=128, ref_window_size=16,
                               guard_window_size=8, threshold_scaler=3.0)
     rt_b = dataclasses.replace(
         rt_m, guard_window_size=jnp.asarray(100, jnp.int32))
-    k_big = fused_mag_cfar(spec, rt_b, cfg, interpret=True)
-    k_max = fused_mag_cfar(spec, rt_m, cfg, interpret=True)
+    k_big = tail(spec, rt_b)
+    k_max = tail(spec, rt_m)
     np.testing.assert_array_equal(np.asarray(k_big.threshold),
                                   np.asarray(k_max.threshold))
 

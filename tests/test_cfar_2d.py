@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu.golden import cfar_2d_golden
-from rsp_chains_tpu.ops.cfar_2d import (
+from rsp_chains.golden import cfar_2d_golden
+from rsp_chains.ops.cfar_2d import (
     Cfar2dConfig, Cfar2dRuntime, cfar_2d_op, rd_2d_cfar_chain,
 )
 
@@ -22,6 +22,24 @@ def _rt2(**kw):
     kw.setdefault("guard_doppler", 1)
     kw.setdefault("threshold_scaler", 3.0)
     return Cfar2dRuntime.make(validate_against=CFG, **kw)
+
+
+def _golden_rd_2d(cpi, taps, rt2, window=None):
+    """range_doppler_golden (matched-filter range stage) -> JPL magnitude ->
+    cfar_2d_golden for one [P, N] CPI."""
+    from rsp_chains.golden import jpl_mag, range_doppler_golden
+
+    rd = range_doppler_golden(np.asarray(cpi, np.complex128),
+                              matched_taps=np.asarray(taps),
+                              doppler_window=window)
+    return cfar_2d_golden(
+        jpl_mag(rd), ref_range=int(rt2.ref_range),
+        guard_range=int(rt2.guard_range), ref_doppler=int(rt2.ref_doppler),
+        guard_doppler=int(rt2.guard_doppler),
+        threshold_scaler=float(rt2.threshold_scaler),
+        log_or_linear=int(rt2.log_or_linear),
+        peak_grouping=int(rt2.peak_grouping),
+        active_range=int(rt2.active_range))
 
 
 def _map(rng, p=12, n=48):
@@ -77,12 +95,12 @@ def test_cfar_2d_runtime_validation():
 
 
 def test_rd_2d_cfar_chain_detects_target():
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         CfarConfig, CfarVariant, ChainConfig, DopplerConfig, FftConfig,
         MatchedFilterConfig, RuntimeConfig,
     )
-    from rsp_chains_tpu.cplx import as_pair
-    from rsp_chains_tpu.golden import chirp_with_targets, lfm_chirp
+    from rsp_chains.cplx import as_pair
+    from rsp_chains.golden import chirp_with_targets, lfm_chirp
 
     p, n = 16, 256
     taps = lfm_chirp(32, 0.0, 0.25)
@@ -99,22 +117,16 @@ def test_rd_2d_cfar_chain_detects_target():
                             guard_window_size=2, threshold_scaler=8.0,
                             div_sum=3)
     rt2 = _rt2(threshold_scaler=8.0)
-    out_fused = rd_2d_cfar_chain(cfg, taps=taps, cfg2d=CFG)(
+    out = rd_2d_cfar_chain(cfg, taps=taps, cfg2d=CFG)(
         as_pair(cpi[None]), rt, rt2)
-    pk = np.asarray(out_fused.peaks)[0]
+    pk = np.asarray(out.peaks)[0]
     assert pk[p // 2 + int(fd * p), delay]
 
-    # the fused-map front half agrees with the XLA composition front half
-    import dataclasses
-
-    cfg_xla = dataclasses.replace(
-        cfg, cfar=dataclasses.replace(cfg.cfar, use_pallas=False))
-    out_xla = rd_2d_cfar_chain(cfg_xla, taps=taps, cfg2d=CFG)(
-        as_pair(cpi[None]), rt, rt2)
-    thr_w = np.asarray(out_xla.threshold)
+    # and the whole chain agrees with the numpy golden
+    thr_w, pk_w = _golden_rd_2d(cpi, taps, rt2)
     scale = np.abs(thr_w).max()
-    assert np.abs(np.asarray(out_fused.threshold) - thr_w).max() / scale \
-        < 1e-4
+    assert np.abs(np.asarray(out.threshold)[0] - thr_w).max() / scale < 1e-4
+    np.testing.assert_array_equal(pk, pk_w)
 
 
 @pytest.mark.parametrize("p,n,kw", [
@@ -148,8 +160,8 @@ def test_cfar_2d_range_sharded_equals_unsharded(rng):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from rsp_chains_tpu.parallel import make_mesh
-    from rsp_chains_tpu.parallel.sharded import cfar_2d_halo_shard
+    from rsp_chains.parallel import make_mesh
+    from rsp_chains.parallel.sharded import cfar_2d_halo_shard
 
     mesh = make_mesh(channels=2, range_shards=4)
     m = np.abs(rng.randn(2, 16, 256)).astype(np.float32)
@@ -160,7 +172,7 @@ def test_cfar_2d_range_sharded_equals_unsharded(rng):
     sharded = jax.jit(jax.shard_map(
         lambda x, r: cfar_2d_halo_shard(x, r, CFG),
         mesh=mesh, in_specs=(spec, P()),
-        out_specs=__import__("rsp_chains_tpu.ops.cfar", fromlist=["CfarOutput"])
+        out_specs=__import__("rsp_chains.ops.cfar", fromlist=["CfarOutput"])
         .CfarOutput(spec, spec, None, None),
         check_vma=False,
     ))
@@ -196,7 +208,7 @@ def test_cfar_2d_clamps_raw_register_writes(rng):
 
 
 def test_rd_chain_rejects_lsb_keep_elaboration():
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         CfarConfig, CfarVariant, ChainConfig, DopplerConfig, FftConfig,
         MatchedFilterConfig, range_doppler_chain,
     )
@@ -225,7 +237,7 @@ def test_cfar_2d_large_elaboration_recenter(rng):
                              guard_doppler=0, threshold_scaler=2.0,
                              validate_against=big)
     out = cfar_2d_op(jnp.asarray(m), rt2, big)
-    from rsp_chains_tpu.golden import cfar_2d_golden
+    from rsp_chains.golden import cfar_2d_golden
 
     thr_g, pk_g = cfar_2d_golden(
         m, ref_range=250, guard_range=8, ref_doppler=1, guard_doppler=0,
@@ -239,18 +251,17 @@ def test_cfar_2d_large_elaboration_recenter(rng):
 def test_rd_2d_chain_no_matched_filter_means_no_filter(rng):
     """cfg.matched_filter=None: no filter stage (matching the sharded
     semantics); explicit taps with no MF config is rejected."""
-    from rsp_chains_tpu import ChainConfig, DopplerConfig, FftConfig, RuntimeConfig
-    from rsp_chains_tpu.configs import CfarConfig, CfarVariant
-    from rsp_chains_tpu.cplx import as_pair
-    from rsp_chains_tpu.ops.doppler import doppler_fft
+    from rsp_chains import ChainConfig, DopplerConfig, FftConfig, RuntimeConfig
+    from rsp_chains.configs import CfarConfig, CfarVariant
+    from rsp_chains.cplx import as_pair
+    from rsp_chains.ops.doppler import doppler_fft
 
     n, p = 256, 16
     cfg = ChainConfig(
         fft=FftConfig(max_size=n),
         doppler=DopplerConfig(num_pulses=p),
         cfar=CfarConfig(max_ref_window=8, max_guard_window=2, max_fft_size=n,
-                        variant=CfarVariant.CA, include_cash=False,
-                        use_pallas=False))
+                        variant=CfarVariant.CA, include_cash=False))
     with pytest.raises(ValueError, match="matched_filter is None"):
         rd_2d_cfar_chain(cfg, taps=np.ones(8, np.complex64))
 
@@ -266,8 +277,8 @@ def test_rd_2d_chain_no_matched_filter_means_no_filter(rng):
     want_map = doppler_fft(as_pair(x), cfg.doppler)
     got_thr = np.asarray(out.threshold)
     assert got_thr.shape == (1, p, n)
-    from rsp_chains_tpu.golden import cfar_2d_golden
-    from rsp_chains_tpu.ops.logmag import logmag
+    from rsp_chains.golden import cfar_2d_golden
+    from rsp_chains.ops.logmag import logmag
 
     mag = np.asarray(logmag(want_map, rt.mag_mode))
     thr_g, _ = cfar_2d_golden(mag[0], ref_range=4, guard_range=1,
@@ -277,8 +288,8 @@ def test_rd_2d_chain_no_matched_filter_means_no_filter(rng):
     np.testing.assert_allclose(got_thr[0], thr_g, rtol=1e-4, atol=1e-5)
 
 
-def _rd_cfg(p=16, n=256, use_pallas=True):
-    from rsp_chains_tpu import (
+def _rd_cfg(p=16, n=256):
+    from rsp_chains import (
         CfarConfig, CfarVariant, ChainConfig, DopplerConfig, FftConfig,
         MatchedFilterConfig,
     )
@@ -288,31 +299,27 @@ def _rd_cfg(p=16, n=256, use_pallas=True):
         matched_filter=MatchedFilterConfig(num_taps=32, fft_size=n),
         doppler=DopplerConfig(num_pulses=p, window=None),
         cfar=CfarConfig(max_ref_window=16, max_guard_window=4, max_fft_size=n,
-                        variant=CfarVariant.CA, include_cash=False,
-                        use_pallas=use_pallas),
+                        variant=CfarVariant.CA, include_cash=False),
     )
 
 
 def test_fused_rd_2d_kernel_register_sweep_matches_xla(rng):
-    """The single-kernel RD+2-D-CFAR (fused_rd_2d_chain) equals the XLA
-    composition across the 2-D register grid, with ONE compiled executable
-    (the 2-D register file is traced — VERDICT r2 item 8)."""
+    """The RD+2-D-CFAR chain equals the numpy golden across the 2-D register
+    grid, with ONE compiled executable (the 2-D register file is traced —
+    VERDICT r2 item 8)."""
     import jax
 
-    from rsp_chains_tpu import RuntimeConfig
-    from rsp_chains_tpu.cplx import as_pair
-    from rsp_chains_tpu.golden import lfm_chirp
+    from rsp_chains import RuntimeConfig
+    from rsp_chains.cplx import as_pair
+    from rsp_chains.golden import lfm_chirp
 
     p, n = 16, 256
     taps = lfm_chirp(32, 0.0, 0.25)
     cfg = _rd_cfg(p, n)
-    cfg_xla = _rd_cfg(p, n, use_pallas=False)
-    run_fused = rd_2d_cfar_chain(cfg, taps=taps, cfg2d=CFG)
-    run_xla = rd_2d_cfar_chain(cfg_xla, taps=taps, cfg2d=CFG)
-    jf = jax.jit(run_fused)
+    jf = jax.jit(rd_2d_cfar_chain(cfg, taps=taps, cfg2d=CFG))
 
-    x = as_pair((rng.randn(2, p, n) + 1j * rng.randn(2, p, n))
-                .astype(np.complex64))
+    cpi = (rng.randn(2, p, n) + 1j * rng.randn(2, p, n)).astype(np.complex64)
+    x = as_pair(cpi)
     rt = RuntimeConfig.make(fft_size=n, ref_window_size=8,
                             guard_window_size=2, threshold_scaler=8.0,
                             div_sum=3)
@@ -327,13 +334,13 @@ def test_fused_rd_2d_kernel_register_sweep_matches_xla(rng):
     for kw in sweeps:
         rt2 = _rt2(**kw)
         got = jf(x, rt, rt2)
-        want = run_xla(x, rt, rt2)
-        thr_w = np.asarray(want.threshold)
+        assert got.threshold.shape == (2, p, n)
+        thr_w, pk_w = _golden_rd_2d(cpi[0], taps, rt2)
         scale = max(np.abs(thr_w).max(), 1e-30)
-        assert (np.abs(np.asarray(got.threshold) - thr_w).max() / scale
+        assert (np.abs(np.asarray(got.threshold)[0] - thr_w).max() / scale
                 < 1e-4), kw
-        np.testing.assert_array_equal(np.asarray(got.peaks),
-                                      np.asarray(want.peaks), err_msg=str(kw))
+        np.testing.assert_array_equal(np.asarray(got.peaks)[0], pk_w,
+                                      err_msg=str(kw))
     assert jf._cache_size() == 1
 
 
@@ -434,12 +441,11 @@ def test_cfar_2d_os_degenerate_map(rng):
 
 
 def test_rd_2d_chain_os_not_fused(rng):
-    """include_os elaborations must route around the fused kernel (the OS
-    body is XLA-only) and still detect through the full chain."""
-    from rsp_chains_tpu import ChainConfig, DopplerConfig, MatchedFilterConfig
-    from rsp_chains_tpu.configs import FftConfig, RuntimeConfig
-    from rsp_chains_tpu.cplx import as_pair
-    from rsp_chains_tpu.golden import chirp_with_targets, lfm_chirp
+    """include_os elaborations detect through the full chain."""
+    from rsp_chains import ChainConfig, DopplerConfig, MatchedFilterConfig
+    from rsp_chains.configs import FftConfig, RuntimeConfig
+    from rsp_chains.cplx import as_pair
+    from rsp_chains.golden import chirp_with_targets, lfm_chirp
 
     p, n = 16, 256
     taps = lfm_chirp(32, 0.0, 0.25)
@@ -464,8 +470,8 @@ def test_cfar_2d_os_range_sharded_equals_unsharded(rng):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from rsp_chains_tpu.parallel import make_mesh
-    from rsp_chains_tpu.parallel.sharded import cfar_2d_halo_shard
+    from rsp_chains.parallel import make_mesh
+    from rsp_chains.parallel.sharded import cfar_2d_halo_shard
 
     mesh = make_mesh(channels=2, range_shards=4)
     m = np.abs(rng.randn(2, 16, 256)).astype(np.float32)
@@ -476,7 +482,7 @@ def test_cfar_2d_os_range_sharded_equals_unsharded(rng):
     sharded = jax.jit(jax.shard_map(
         lambda x, r: cfar_2d_halo_shard(x, r, OS_CFG),
         mesh=mesh, in_specs=(spec, P()),
-        out_specs=__import__("rsp_chains_tpu.ops.cfar", fromlist=["CfarOutput"])
+        out_specs=__import__("rsp_chains.ops.cfar", fromlist=["CfarOutput"])
         .CfarOutput(spec, spec, None, None),
         check_vma=False,
     ))
@@ -494,7 +500,7 @@ def test_cfar_2d_os_range_sharded_equals_unsharded(rng):
 def test_cli_rd_2d_os_preset(tmp_path, rng):
     """--set2d algorithm=1 elaborates the OS maxima, shrinks the default
     window to fit, and detects on the synthetic fixture."""
-    from rsp_chains_tpu import cli
+    from rsp_chains import cli
 
     ch = cli._build_chain("rd_2d", ["algorithm=1", "threshold_scaler=8.0",
                                     "peak_grouping=1"])
@@ -502,7 +508,7 @@ def test_cli_rd_2d_os_preset(tmp_path, rng):
     assert int(ch.rt2.ref_range) <= ch.cfg2d.max_ref_range
     assert int(ch.rt2.os_rank) == ch.cfg2d.os_stack // 2
     import jax as _jax
-    from rsp_chains_tpu.configs import RuntimeConfig
+    from rsp_chains.configs import RuntimeConfig
 
     x = jnp.asarray(cli._default_cpi("rd_2d", ch.cfg))
     out = ch.jit()(x, RuntimeConfig.make(fft_size=1024))

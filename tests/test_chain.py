@@ -9,7 +9,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     ChainConfig,
     CfarConfig,
     CfarVariant,
@@ -19,8 +19,8 @@ from rsp_chains_tpu import (
     fft_mag_cfar_chain,
     rx_fft_mag_cfar_tx_chain,
 )
-from rsp_chains_tpu.golden import three_tone_signal, fft_golden, jpl_mag, cfar_golden
-from rsp_chains_tpu import packing
+from rsp_chains.golden import three_tone_signal, fft_golden, jpl_mag, cfar_golden
+from rsp_chains import packing
 
 
 def _canonical_cfg():
@@ -92,8 +92,8 @@ def test_rx_tx_packed_wire_format():
 
 def test_chain_nesting_composition():
     """Chains nest by concatenation like NodeHandle chains (SURVEY §2.9->§2.11)."""
-    from rsp_chains_tpu.chain import Chain, Stage
-    from rsp_chains_tpu.presets import fft_stage, mag_stage
+    from rsp_chains.chain import Chain, Stage
+    from rsp_chains.presets import fft_stage, mag_stage
 
     cfg = _canonical_cfg()
     front = Chain(cfg, [fft_stage(cfg)])
@@ -120,15 +120,15 @@ def test_batched_frames():
 
 def test_detection_list_compaction():
     """Top-K sparse detection output (serving egress path)."""
-    from rsp_chains_tpu.ops.detect import compact_detections
-    from rsp_chains_tpu.ops.logmag import logmag
+    from rsp_chains.ops.detect import compact_detections
+    from rsp_chains.ops.logmag import logmag
 
     cfg = _canonical_cfg()
     chain = fft_mag_cfar_chain(cfg)
     rt = _canonical_rt()
     iq = jnp.asarray(three_tone_signal(1024, shift_range_factor=12), jnp.complex64)
     out = chain.jit()(iq, rt)
-    from rsp_chains_tpu.ops.fft import fft_op
+    from rsp_chains.ops.fft import fft_op
     mag = logmag(fft_op(iq, rt.log2_fft_size, cfg.fft), rt.mag_mode)
     det = compact_detections(mag, out, max_detections=16)
     got_bins = set(np.asarray(det.bins)[np.asarray(det.bins) >= 0].tolist())
@@ -165,8 +165,8 @@ def test_rx_tx_send_cut_mode():
 def test_pulse_compression_chain_detects_delayed_chirp():
     """BASELINE config 2 preset: a delayed LFM return compresses to its range
     bin and CFAR detects it."""
-    from rsp_chains_tpu import MatchedFilterConfig, pulse_compression_chain
-    from rsp_chains_tpu.golden import lfm_chirp
+    from rsp_chains import MatchedFilterConfig, pulse_compression_chain
+    from rsp_chains.golden import lfm_chirp
 
     chirp = lfm_chirp(128, 0.0, 0.25)
     cfg = ChainConfig(
@@ -186,7 +186,7 @@ def test_pulse_compression_chain_detects_delayed_chirp():
     # NOTE: this chain applies a range FFT after the matched filter (dechirp-
     # style processing); the compressed pulse is an impulse at `delay`, whose
     # spectrum is flat — so instead check the matched-filter stage directly
-    from rsp_chains_tpu.ops.matched_filter import matched_filter
+    from rsp_chains.ops.matched_filter import matched_filter
 
     y = np.abs(np.asarray(matched_filter(jnp.asarray(x), jnp.asarray(chirp))))
     assert np.argmax(y) == delay
@@ -196,7 +196,7 @@ def test_pulse_compression_chain_detects_delayed_chirp():
 @pytest.mark.slow
 def test_profiler_trace_smoke(tmp_path):
     """utils.trace captures a jax.profiler trace directory (SURVEY §5.1)."""
-    from rsp_chains_tpu.utils import trace
+    from rsp_chains.utils import trace
 
     cfg = _canonical_cfg()
     chain = fft_mag_cfar_chain(cfg)
@@ -211,48 +211,52 @@ def test_profiler_trace_smoke(tmp_path):
 
 
 def test_chain_edge_policy_routing_matches_xla(rng):
-    """WRAP/REFLECT elaborations through the default chain builder must agree
-    with the XLA tail bit-for-bit (r1 regression: tail_stages routed them to
-    the PARTIAL-only Pallas kernels, silently changing edge cells)."""
-    from rsp_chains_tpu.configs import EdgePolicy
+    """WRAP/REFLECT elaborations through the default chain builder must honor
+    the edge policy at the frame edges (r1 regression: the chain builder once
+    routed them to a PARTIAL-only tail, silently changing edge cells)."""
+    from rsp_chains.configs import EdgePolicy
+    from rsp_chains.golden import cfar_golden, fft_golden, jpl_mag
     import dataclasses
 
     iq = three_tone_signal(1024, shift_range_factor=12)
     rt = _canonical_rt()
+    mag = jpl_mag(fft_golden(np.asarray(iq, np.complex64).astype(np.complex128)))
     for policy in (EdgePolicy.WRAP, EdgePolicy.REFLECT):
         base = _canonical_cfg()
         cfg_p = dataclasses.replace(
-            base, cfar=dataclasses.replace(base.cfar, edge_policy=policy,
-                                           use_pallas=True))
-        cfg_x = dataclasses.replace(
-            base, cfar=dataclasses.replace(base.cfar, edge_policy=policy,
-                                           use_pallas=False))
+            base, cfar=dataclasses.replace(base.cfar, edge_policy=policy))
         out_p = fft_mag_cfar_chain(cfg_p).jit()(jnp.asarray(iq, jnp.complex64), rt)
-        out_x = fft_mag_cfar_chain(cfg_x).jit()(jnp.asarray(iq, jnp.complex64), rt)
-        np.testing.assert_array_equal(np.asarray(out_p.threshold),
-                                      np.asarray(out_x.threshold))
-        np.testing.assert_array_equal(np.asarray(out_p.peaks),
-                                      np.asarray(out_x.peaks))
+        thr_g, pk_g = cfar_golden(mag, ref_window=32, guard_window=4,
+                                  threshold_scaler=3.5, div_sum=5,
+                                  edge_policy=policy.value)
+        np.testing.assert_allclose(np.asarray(out_p.threshold), thr_g,
+                                   rtol=1e-4, atol=1e-6 * np.abs(thr_g).max())
+        np.testing.assert_array_equal(np.asarray(out_p.peaks), pk_g)
 
 
 def test_chain_fidelity_mode_routing_matches_xla():
-    """Fixed-point fidelity elaborations must keep the XLA tail (the mag-stage
-    boundary quantization lives between the XLA stages)."""
+    """Fixed-point fidelity elaborations quantize the FFT and magnitude stage
+    boundaries (the mag-stage boundary quantization lives between the fft,
+    logmag and cfar stages)."""
     import dataclasses
-    from rsp_chains_tpu.configs import FixedPointConfig
+    from rsp_chains.configs import FixedPointConfig
+    from rsp_chains.numerics import quantize
+    from rsp_chains.ops.cfar import cfar_op
+    from rsp_chains.ops.fft import fft_op
+    from rsp_chains.ops.logmag import logmag
 
     iq = three_tone_signal(1024, shift_range_factor=12)
     rt = _canonical_rt()
     base = _canonical_cfg()
     fp = FixedPointConfig(enabled=True, width=16, bin_point=12)
     cfg_p = dataclasses.replace(base, fixed_point=fp)
-    cfg_x = dataclasses.replace(
-        base, fixed_point=fp,
-        cfar=dataclasses.replace(base.cfar, use_pallas=False))
     ch = fft_mag_cfar_chain(cfg_p)
-    assert "mag_cfar_fused" not in ch.stage_names
+    assert ch.stage_names == ("fft", "logmag", "cfar")
     out_p = ch.jit()(jnp.asarray(iq, jnp.complex64), rt)
-    out_x = fft_mag_cfar_chain(cfg_x).jit()(jnp.asarray(iq, jnp.complex64), rt)
+    spec = quantize(fft_op(jnp.asarray(iq, jnp.complex64), rt.log2_fft_size,
+                           cfg_p.fft), fp)
+    out_x = cfar_op(quantize(logmag(spec, rt.mag_mode, cfg_p.mag), fp), rt,
+                    cfg_p.cfar)
     np.testing.assert_array_equal(np.asarray(out_p.threshold),
                                   np.asarray(out_x.threshold))
     np.testing.assert_array_equal(np.asarray(out_p.peaks), np.asarray(out_x.peaks))
@@ -262,8 +266,8 @@ def test_real_rx_chain_detects_real_tones():
     """Real-ADC ingest preset (rfft pack trick): real tones at f = 1/8, 1/4
     detect at bins N/8, N/4 of the one-sided spectrum; matches the complex
     chain run on the zero-imag signal over the shared band."""
-    from rsp_chains_tpu import real_rx_chain
-    from rsp_chains_tpu.cplx import as_pair
+    from rsp_chains import real_rx_chain
+    from rsp_chains.cplx import as_pair
 
     n = 1024
     rng = np.random.RandomState(9)

@@ -7,17 +7,16 @@ import time
 import numpy as np
 import pytest
 
-import rsp_chains_tpu as rsp
-from rsp_chains_tpu.io.control import ControlServer, poke
-from rsp_chains_tpu.io.stream import StreamingPipeline
+import rsp_chains as rsp
+from rsp_chains.io.control import ControlServer, poke
+from rsp_chains.io.stream import StreamingPipeline
 
 
 @pytest.fixture(scope="module")
 def chain():
     cfg = rsp.ChainConfig(
         fft=rsp.FftConfig(max_size=256),
-        cfar=rsp.CfarConfig(max_ref_window=16, max_fft_size=256,
-                            use_pallas=False),
+        cfar=rsp.CfarConfig(max_ref_window=16, max_fft_size=256),
     )
     return rsp.fft_mag_cfar_chain(cfg)
 
@@ -88,7 +87,7 @@ def test_poke_validation_rejects_bad_writes(chain):
 
 def test_cli_poke_roundtrip(chain, capsys):
     """The ``poke`` CLI subcommand drives the same protocol."""
-    from rsp_chains_tpu import cli
+    from rsp_chains import cli
 
     pipe = StreamingPipeline(chain.jit(), _rt())
     with pipe, ControlServer(lambda: pipe.runtime, pipe.reconfigure,
@@ -155,7 +154,7 @@ def test_concurrent_pokes_never_tear_the_register_file(chain):
     profile RAM — and every intermediate peek must round-trip make()."""
     import queue
 
-    from rsp_chains_tpu.ops.plfg import PlfgProgram, Segment, compile_program
+    from rsp_chains.ops.plfg import PlfgProgram, Segment, compile_program
 
     prof = compile_program(
         PlfgProgram(chirps=((Segment(num_samples=256),),)),

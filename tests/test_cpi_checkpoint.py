@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from rsp_chains_tpu.configs import RuntimeConfig
-from rsp_chains_tpu.io.cpi import CpiBuffer, load_state, save_state
+from rsp_chains.configs import RuntimeConfig
+from rsp_chains.io.cpi import CpiBuffer, load_state, save_state
 
 
 def test_cpi_assembly(rng):
@@ -61,8 +61,8 @@ def test_invalid_hop():
 def test_checkpoint_path_without_suffix_round_trips(tmp_path):
     """np.savez appends '.npz' but np.load does not — suffix-less paths must
     still round-trip."""
-    from rsp_chains_tpu import RuntimeConfig
-    from rsp_chains_tpu.io.cpi import load_state, save_state
+    from rsp_chains import RuntimeConfig
+    from rsp_chains.io.cpi import load_state, save_state
 
     rt = RuntimeConfig.make(fft_size=256, ref_window_size=8,
                             guard_window_size=2, threshold_scaler=4.5)
@@ -77,8 +77,8 @@ def test_checkpoint_carries_plfg_profile(tmp_path):
     """The PLFG profile RAM is part of the restartable state."""
     import numpy as np
 
-    from rsp_chains_tpu.configs import RuntimeConfig
-    from rsp_chains_tpu.io.cpi import load_state, save_state
+    from rsp_chains.configs import RuntimeConfig
+    from rsp_chains.io.cpi import load_state, save_state
 
     prof = np.linspace(0, 7, 64).astype(np.float32)
     rt = RuntimeConfig.make(fft_size=64, ref_window_size=8,
@@ -99,8 +99,8 @@ def test_checkpoint_from_older_register_file_restores_defaults(tmp_path):
     register to its make() default, not None (code-review r3 finding)."""
     import numpy as np
 
-    from rsp_chains_tpu.configs import RuntimeConfig
-    from rsp_chains_tpu.io.cpi import load_state, save_state
+    from rsp_chains.configs import RuntimeConfig
+    from rsp_chains.io.cpi import load_state, save_state
 
     rt = RuntimeConfig.make(fft_size=64, ref_window_size=8,
                             guard_window_size=2, threshold_scaler=7.0)

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu.cplx import (
+from rsp_chains.cplx import (
     C, as_pair, gauss_triple, join, like, matmul_gauss, to_numpy,
 )
 

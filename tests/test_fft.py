@@ -1,13 +1,13 @@
-"""FFT op tests: four-step MXU formulation vs numpy, runtime sizing, scaling."""
+"""FFT op tests: four-step matmul formulation vs numpy, runtime sizing, scaling."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu.configs import FftConfig, FftScaling, RuntimeConfig
-from rsp_chains_tpu.ops.fft import fft_op, four_step_fft, ifft_op
-from rsp_chains_tpu.golden import fft_golden
+from rsp_chains.configs import FftConfig, FftScaling, RuntimeConfig
+from rsp_chains.ops.fft import fft_op, four_step_fft, ifft_op
+from rsp_chains.golden import fft_golden
 
 
 @pytest.mark.parametrize("n", [8, 16, 64, 128, 256, 1024, 4096])
@@ -66,9 +66,10 @@ def test_scaling_modes(scaling, ref_div, rng):
 
 
 def test_mxu_vs_jnp_fft_paths(rng):
+    """The four-step matmul FFT agrees with XLA's own FFT (``jnp.fft``)."""
     x = (rng.randn(2, 1024) + 1j * rng.randn(2, 1024)).astype(np.complex64)
-    a = fft_op(jnp.asarray(x), None, FftConfig(max_size=1024, runtime_size=False, use_mxu=True))
-    b = fft_op(jnp.asarray(x), None, FftConfig(max_size=1024, runtime_size=False, use_mxu=False))
+    a = fft_op(jnp.asarray(x), None, FftConfig(max_size=1024, runtime_size=False))
+    b = jnp.fft.fft(jnp.asarray(x), axis=-1) / 1024
     assert np.allclose(np.asarray(a), np.asarray(b), atol=1e-3)
 
 
@@ -94,7 +95,7 @@ def test_expand_logic_per_stage_scaling(rng):
 
 @pytest.mark.parametrize("n", [16, 256, 1024])
 def test_rfft_matches_numpy(n, rng):
-    from rsp_chains_tpu.ops.fft import rfft_op
+    from rsp_chains.ops.fft import rfft_op
 
     x = rng.randn(3, n).astype(np.float32)
     got = np.asarray(rfft_op(jnp.asarray(x)))
@@ -107,7 +108,7 @@ def test_bit_reversed_output_order(rng):
     """FFTParams.useBitReverse=false (RspChain.scala:111): the raw SDF datapath
     emits bin k at slot bitrev(k); with the flag off the op reproduces that
     stream order exactly (a permutation of the natural-order output)."""
-    from rsp_chains_tpu.ops.fft import _bitrev_idx
+    from rsp_chains.ops.fft import _bitrev_idx
 
     cfg_nat = FftConfig(max_size=256, runtime_size=False)
     cfg_rev = FftConfig(max_size=256, runtime_size=False, use_bit_reverse=False)
@@ -123,7 +124,7 @@ def test_bit_reversed_output_order(rng):
 def test_bit_reversed_runtime_size(rng):
     """Bit-reversed order applies per active runtime size: the first n bins
     are the permuted n-point spectrum, the tail stays zero."""
-    from rsp_chains_tpu.ops.fft import _bitrev_idx
+    from rsp_chains.ops.fft import _bitrev_idx
 
     cfg = FftConfig(max_size=1024, runtime_size=True, use_bit_reverse=False)
     x = (rng.randn(1024) + 1j * rng.randn(1024)).astype(np.complex64)

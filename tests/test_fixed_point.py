@@ -6,13 +6,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     ChainConfig, CfarConfig, CfarVariant, FftConfig, FixedPointConfig,
     RuntimeConfig, fft_mag_cfar_chain,
 )
-from rsp_chains_tpu.configs import Rounding
-from rsp_chains_tpu.numerics import quantize, round_to_int, snr_db
-from rsp_chains_tpu.golden import three_tone_signal, fft_golden, jpl_mag
+from rsp_chains.configs import Rounding
+from rsp_chains.numerics import quantize, round_to_int, snr_db
+from rsp_chains.golden import three_tone_signal, fft_golden, jpl_mag
 
 
 def test_round_half_up_matches_dsptools():
@@ -92,9 +92,9 @@ def _int_iq(rng, n=1024, amp=8000):
 
 
 def test_int_fft_matches_golden_exactly(rng):
-    from rsp_chains_tpu.cplx import C
-    from rsp_chains_tpu.ops.bit_true import fft_int_op
-    from rsp_chains_tpu.golden.int_models import int_fft_golden
+    from rsp_chains.cplx import C
+    from rsp_chains.ops.bit_true import fft_int_op
+    from rsp_chains.golden.int_models import int_fft_golden
 
     n = 256
     re, im = _int_iq(rng, n)
@@ -107,9 +107,9 @@ def test_int_fft_matches_golden_exactly(rng):
 
 
 def test_int_fft_runtime_size_branch_exact(rng):
-    from rsp_chains_tpu.cplx import C
-    from rsp_chains_tpu.ops.bit_true import fft_int_op
-    from rsp_chains_tpu.golden.int_models import int_fft_golden
+    from rsp_chains.cplx import C
+    from rsp_chains.ops.bit_true import fft_int_op
+    from rsp_chains.golden.int_models import int_fft_golden
 
     n_max, n = 256, 128
     re, im = _int_iq(rng, n_max)
@@ -127,7 +127,7 @@ def test_int_fft_close_to_float(rng):
     assert +/-2 LSB against *their* (unvendored) datapath ordering
     (RspChainTesterUtils.scala:221-237); this spec's 10-stage RoundHalfUp
     pipeline measures <=3 LSB worst-case at N=1024, 99% within 2."""
-    from rsp_chains_tpu.golden.int_models import int_fft_golden
+    from rsp_chains.golden.int_models import int_fft_golden
 
     n = 1024
     re, im = _int_iq(rng, n)
@@ -142,12 +142,12 @@ def test_int_fft_close_to_float(rng):
 def test_bit_true_packed_output_words_exact(rng):
     """VERDICT r1 item 7 'done' criterion: packed output words of the
     binPoint-0 wire chain are EXACTLY equal to the integer golden pipeline."""
-    from rsp_chains_tpu import packing, rx_fft_mag_cfar_tx_chain
-    from rsp_chains_tpu.configs import (
+    from rsp_chains import packing, rx_fft_mag_cfar_tx_chain
+    from rsp_chains.configs import (
         CfarConfig, CfarVariant, ChainConfig, FftConfig, FixedPointConfig,
         RuntimeConfig,
     )
-    from rsp_chains_tpu.golden.int_models import (
+    from rsp_chains.golden.int_models import (
         int_ca_cfar_golden, int_fft_golden, int_jpl_golden,
     )
 
@@ -161,12 +161,8 @@ def test_bit_true_packed_output_words_exact(rng):
                                      bit_true=True),
     )
     chain = rx_fft_mag_cfar_tx_chain(cfg)
-    # since r4 the bit-true core routes through the fused integer Pallas
-    # kernel (kernels/int_chain_pallas.py); the stage-composition form remains
-    # for non-fusable elaborations
-    assert ("fft_mag_cfar_int_fused" in chain.stage_names
-            or ("fft_int" in chain.stage_names
-                and "cfar_int" in chain.stage_names))
+    assert chain.stage_names == ("rx_unpack", "fft_int", "logmag_int",
+                                 "cfar_int", "tx_pack")
     rt = RuntimeConfig.make(fft_size=n, ref_window_size=32, guard_window_size=4,
                             threshold_scaler=3.5, div_sum=5)
     words_in = np.asarray(packing.pack_iq(
@@ -188,9 +184,9 @@ def test_int_fft_keep_lsb_wraparound_exact(rng):
     """keepMSBorLSB = LSB stages (FFTParams, RspChainVanillaTester.scala:214):
     non-expanding stages keep the LSBs with WRAPAROUND overflow. Near-full-
     scale input forces real wraps; op == index-wise golden exactly."""
-    from rsp_chains_tpu.cplx import C
-    from rsp_chains_tpu.ops.bit_true import fft_int_op
-    from rsp_chains_tpu.golden.int_models import int_fft_golden
+    from rsp_chains.cplx import C
+    from rsp_chains.ops.bit_true import fft_int_op
+    from rsp_chains.golden.int_models import int_fft_golden
 
     n = 256
     p = int(np.log2(n))
@@ -211,7 +207,7 @@ def test_int_fft_keep_lsb_wraparound_exact(rng):
 
 
 def test_float_fft_rejects_lsb_keep():
-    from rsp_chains_tpu.ops.fft import fft_op
+    from rsp_chains.ops.fft import fft_op
 
     n = 64
     keep = (False,) + (True,) * (int(np.log2(n)) - 1)
@@ -223,10 +219,10 @@ def test_float_fft_rejects_lsb_keep():
 
 def test_float_preset_with_lsb_keep_refuses_even_static_size():
     """With runtime_size=False only one branch exists — the preset must not
-    route an LSB-keep elaboration into the float fused kernel silently."""
-    from rsp_chains_tpu import fft_mag_cfar_chain
-    from rsp_chains_tpu.cplx import as_pair
-    from rsp_chains_tpu.golden import three_tone_signal
+    route an LSB-keep elaboration into the float FFT silently."""
+    from rsp_chains import fft_mag_cfar_chain
+    from rsp_chains.cplx import as_pair
+    from rsp_chains.golden import three_tone_signal
 
     n = 256
     keep = (False,) + (True,) * (int(np.log2(n)) - 1)
@@ -250,9 +246,9 @@ def test_int_fft_expanding_stages_exact_vs_int64_golden():
     FULL-SCALE input."""
     import jax.numpy as jnp
 
-    from rsp_chains_tpu.cplx import C
-    from rsp_chains_tpu.golden.int_models import int_fft_golden
-    from rsp_chains_tpu.ops.bit_true import _fft_int_fixed
+    from rsp_chains.cplx import C
+    from rsp_chains.golden.int_models import int_fft_golden
+    from rsp_chains.ops.bit_true import _fft_int_fixed
 
     n = 64
     rng = np.random.RandomState(7)
@@ -272,7 +268,7 @@ def test_int_fft_rejects_too_many_expanding_stages():
     import jax.numpy as jnp
     import pytest
 
-    from rsp_chains_tpu.ops.bit_true import _fft_int_fixed
+    from rsp_chains.ops.bit_true import _fft_int_fixed
 
     n = 1024
     x = jnp.zeros((1, n), jnp.int32)
@@ -285,9 +281,9 @@ def test_int_cfar_large_window_elaboration():
     255 must still take sums from the right cells (vs the int golden)."""
     import jax.numpy as jnp
 
-    from rsp_chains_tpu.configs import CfarConfig, CfarVariant, RuntimeConfig
-    from rsp_chains_tpu.golden.int_models import int_ca_cfar_golden
-    from rsp_chains_tpu.ops.bit_true import ca_cfar_int
+    from rsp_chains.configs import CfarConfig, CfarVariant, RuntimeConfig
+    from rsp_chains.golden.int_models import int_ca_cfar_golden
+    from rsp_chains.ops.bit_true import ca_cfar_int
 
     n = 1024
     cfg = CfarConfig(max_ref_window=256, max_guard_window=16, max_fft_size=n,
@@ -310,12 +306,12 @@ def test_int_cfar_large_window_elaboration():
 def test_int_mag_modes_match_golden_exactly(rng):
     """The full integer LogMagMux menu (abs/sqr/jpl/log2) == index-wise golden
     (RspChainTesterUtils.scala:197-216 menu; LUT log2 on the protoLog grid)."""
-    from rsp_chains_tpu.cplx import C
-    from rsp_chains_tpu.configs import LogMagConfig
-    from rsp_chains_tpu.golden.int_models import (
+    from rsp_chains.cplx import C
+    from rsp_chains.configs import LogMagConfig
+    from rsp_chains.golden.int_models import (
         int_abs_golden, int_jpl_golden, int_log2_golden, int_sqr_golden,
     )
-    from rsp_chains_tpu.ops.bit_true import mag_int_op
+    from rsp_chains.ops.bit_true import mag_int_op
 
     re, im = _int_iq(rng, 512, amp=32768)
     # adversarial corners: zeros, +/- full scale, tiny values, perfect squares
@@ -341,9 +337,9 @@ def test_int_gosca_cfar_register_sweep_matches_golden(rng):
     register grid the reference tester drives (algorithm CA/GOS, modes
     CA/GO/SO/CASH, rank and sub-window registers —
     RspChainVanillaTester.scala:119-141)."""
-    from rsp_chains_tpu.configs import CfarConfig, CfarVariant, RuntimeConfig
-    from rsp_chains_tpu.golden.int_models import int_gosca_cfar_golden
-    from rsp_chains_tpu.ops.bit_true import cfar_int
+    from rsp_chains.configs import CfarConfig, CfarVariant, RuntimeConfig
+    from rsp_chains.golden.int_models import int_gosca_cfar_golden
+    from rsp_chains.ops.bit_true import cfar_int
 
     n = 256
     cfg = CfarConfig(max_ref_window=16, max_guard_window=4, max_fft_size=n,
@@ -392,9 +388,9 @@ def test_int_gosca_cfar_register_sweep_matches_golden(rng):
 def test_int_gosca_runtime_fft_size_register(rng):
     """The runtime cfar fftSize register masks the active frame in the
     integer GOSCA path exactly like the golden's n_active."""
-    from rsp_chains_tpu.configs import CfarConfig, CfarVariant, RuntimeConfig
-    from rsp_chains_tpu.golden.int_models import int_gosca_cfar_golden
-    from rsp_chains_tpu.ops.bit_true import cfar_int
+    from rsp_chains.configs import CfarConfig, CfarVariant, RuntimeConfig
+    from rsp_chains.golden.int_models import int_gosca_cfar_golden
+    from rsp_chains.ops.bit_true import cfar_int
 
     n, n_act = 256, 192
     cfg = CfarConfig(max_ref_window=16, max_guard_window=4, max_fft_size=n,
@@ -419,12 +415,12 @@ def test_bit_true_gosca_packed_wire_words_exact(rng):
     GOSCA chain (the reference's SHIPPED RspChainVanilla configuration,
     RspChain.scala:118,130-140) are EXACTLY equal to the integer golden
     pipeline across GOS/GO/SO/CASH register writes."""
-    from rsp_chains_tpu import packing, rx_fft_mag_cfar_tx_chain
-    from rsp_chains_tpu.configs import (
+    from rsp_chains import packing, rx_fft_mag_cfar_tx_chain
+    from rsp_chains.configs import (
         CfarConfig, CfarVariant, ChainConfig, FftConfig, FixedPointConfig,
         RuntimeConfig,
     )
-    from rsp_chains_tpu.golden.int_models import (
+    from rsp_chains.golden.int_models import (
         int_fft_golden, int_gosca_cfar_golden, int_jpl_golden,
     )
 
@@ -439,12 +435,8 @@ def test_bit_true_gosca_packed_wire_words_exact(rng):
                                      bit_true=True),
     )
     chain = rx_fft_mag_cfar_tx_chain(cfg)
-    # since r4 the bit-true core routes through the fused integer Pallas
-    # kernel (kernels/int_chain_pallas.py); the stage-composition form remains
-    # for non-fusable elaborations
-    assert ("fft_mag_cfar_int_fused" in chain.stage_names
-            or ("fft_int" in chain.stage_names
-                and "cfar_int" in chain.stage_names))
+    assert chain.stage_names == ("rx_unpack", "fft_int", "logmag_int",
+                                 "cfar_int", "tx_pack")
     jf = chain.jit()
     words_in = np.asarray(packing.pack_iq(
         jnp.asarray(re + 1j * im, jnp.complex64)))

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rsp_chains_tpu.ops.integrate import (
+from rsp_chains.ops.integrate import (
     binary_integration, coherent_integration, noncoherent_integration,
 )
 

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu.io import (
+from rsp_chains.io import (
     Frame, FrameDecoder, FrameError, decode_frame, encode_frame, encode_iq_frame,
     StreamingPipeline, native,
 )
-from rsp_chains_tpu import packing
+from rsp_chains import packing
 
 
 def test_native_pack_matches_jnp_packing(rng):
@@ -66,11 +66,11 @@ def test_decoder_resync_after_garbage(rng):
 
 
 def test_streaming_pipeline_end_to_end():
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         ChainConfig, CfarConfig, CfarVariant, FftConfig, RuntimeConfig,
         fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.golden import three_tone_signal
 
     cfg = ChainConfig(fft=FftConfig(max_size=256),
                       cfar=CfarConfig(max_ref_window=16, variant=CfarVariant.CA,
@@ -104,14 +104,14 @@ def test_streaming_pipeline_end_to_end():
 
 def test_streaming_deferred_detections_and_phase_table():
     """r5 serving-cost features (VERDICT r4 item 3): detections_every=K
-    accumulates the count on device (per-CPI metrics carry -1, no relay
+    accumulates the count on device (per-CPI metrics carry -1, no host
     fetch), the running total lands every K CPIs and on flush_detections();
     the phase table attributes serving cost per CPI."""
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         ChainConfig, CfarConfig, CfarVariant, FftConfig, RuntimeConfig,
         fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.golden import three_tone_signal
 
     cfg = ChainConfig(fft=FftConfig(max_size=256),
                       cfar=CfarConfig(max_ref_window=16, variant=CfarVariant.CA,
@@ -157,11 +157,11 @@ def test_streaming_block_every_drains_all_results():
     """block_every=K amortizes the drain's block_until_ready over K CPIs
     (sound on a single device stream); every result must still be delivered
     and the owed tail completion paid at stop."""
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         ChainConfig, CfarConfig, CfarVariant, FftConfig, RuntimeConfig,
         fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.golden import three_tone_signal
 
     cfg = ChainConfig(fft=FftConfig(max_size=256),
                       cfar=CfarConfig(max_ref_window=16, variant=CfarVariant.CA,
@@ -193,11 +193,11 @@ def test_streaming_on_result_exception_does_not_kill_drain():
     contained per CPI: the stream keeps draining and reports the error via
     on_error (the r5 multihost hang was a metrics-path exception silently
     killing the drain thread)."""
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         ChainConfig, CfarConfig, CfarVariant, FftConfig, RuntimeConfig,
         fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.golden import three_tone_signal
 
     cfg = ChainConfig(fft=FftConfig(max_size=256),
                       cfar=CfarConfig(max_ref_window=16, variant=CfarVariant.CA,
@@ -229,11 +229,11 @@ def test_streaming_on_result_exception_does_not_kill_drain():
 
 
 def test_streaming_reconfigure_between_cpis():
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         ChainConfig, CfarConfig, CfarVariant, FftConfig, RuntimeConfig,
         fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.golden import three_tone_signal
 
     cfg = ChainConfig(fft=FftConfig(max_size=256),
                       cfar=CfarConfig(max_ref_window=16, variant=CfarVariant.CA,
@@ -263,11 +263,11 @@ def test_streaming_reconfigure_between_cpis():
 def test_streaming_elastic_error_recovery():
     """Fault injection: a CPI with a bad shape fails; the stream keeps running
     (failure detection / elastic recovery, SURVEY §5.3)."""
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         ChainConfig, CfarConfig, CfarVariant, FftConfig, RuntimeConfig,
         fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.golden import three_tone_signal
     import time
 
     cfg = ChainConfig(fft=FftConfig(max_size=256),
@@ -298,7 +298,7 @@ def test_framing_corrupt_length_resyncs():
     decoder: the bounded-length check raises FrameError so one-byte resync
     engages and the following valid frame still decodes (ADVICE r1)."""
     import numpy as np
-    from rsp_chains_tpu.io import framing
+    from rsp_chains.io import framing
 
     good = framing.encode_frame(np.arange(8, dtype=np.uint32), seq=7)
     bad = bytearray(framing.encode_frame(np.arange(4, dtype=np.uint32), seq=1))
@@ -312,7 +312,7 @@ def test_framing_corrupt_length_resyncs():
 
 def _python_only_decode(data: bytes):
     """Force the Python decoder path (native.scan_frames monkey-bypassed)."""
-    from rsp_chains_tpu.io import framing, native
+    from rsp_chains.io import framing, native
 
     dec = framing.FrameDecoder()
     orig = native.scan_frames
@@ -327,7 +327,7 @@ def test_native_scan_equals_python_decoder(rng):
     """The C++ scan_frames fast path yields exactly the Python decoder's
     frames across clean frames, garbage resync, a corrupted-CRC frame, an
     oversized length, and a trailing partial frame."""
-    from rsp_chains_tpu.io import framing, native
+    from rsp_chains.io import framing, native
 
     frames = [encode_frame(rng.randint(0, 1 << 32, 16, dtype=np.uint32), s)
               for s in range(4)]
@@ -354,7 +354,7 @@ def test_native_scan_equals_python_decoder(rng):
 
 
 def test_native_scan_split_feeds(rng):
-    from rsp_chains_tpu.io import framing
+    from rsp_chains.io import framing
 
     f = encode_frame(rng.randint(0, 1 << 32, 64, dtype=np.uint32), 7,
                      last=True, channel=3)
@@ -369,7 +369,7 @@ def test_native_scan_split_feeds(rng):
 def test_native_scan_abandoned_iterator_keeps_frames(rng):
     """Abandoning the feed() generator mid-iteration neither loses nor
     duplicates frames (the resume offset tracks delivered frames)."""
-    from rsp_chains_tpu.io import framing
+    from rsp_chains.io import framing
 
     frames = [encode_frame(rng.randint(0, 1 << 32, 8, dtype=np.uint32), s)
               for s in range(3)]

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu.configs import LogMagConfig, MagMode
-from rsp_chains_tpu.ops.logmag import logmag
-from rsp_chains_tpu.golden import jpl_mag, sqr_mag, log2_mag, abs_mag
+from rsp_chains.configs import LogMagConfig, MagMode
+from rsp_chains.ops.logmag import logmag
+from rsp_chains.golden import jpl_mag, sqr_mag, log2_mag, abs_mag
 
 
 @pytest.mark.parametrize("mode,golden", [

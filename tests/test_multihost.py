@@ -52,11 +52,11 @@ def test_two_process_pod_mesh_matches_unsharded(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         CfarConfig, ChainConfig, FftConfig, RuntimeConfig, fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.cplx import as_pair
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.cplx import as_pair
+    from rsp_chains.golden import three_tone_signal
 
     cfg = ChainConfig(
         fft=FftConfig(max_size=256),
@@ -95,7 +95,7 @@ def test_pod_mesh_groups_devices_by_process(monkeypatch):
     (ch, rng) time block even when jax.devices() interleaves hosts."""
     import jax
 
-    from rsp_chains_tpu.parallel.multihost import make_pod_mesh
+    from rsp_chains.parallel.multihost import make_pod_mesh
 
     class FakeDev:
         def __init__(self, i, p):
@@ -118,7 +118,7 @@ def test_pod_mesh_rejects_block_straddling_hosts(monkeypatch):
     import jax
     import pytest
 
-    from rsp_chains_tpu.parallel.multihost import make_pod_mesh
+    from rsp_chains.parallel.multihost import make_pod_mesh
 
     class FakeDev:
         def __init__(self, i, p):
@@ -161,11 +161,11 @@ def test_two_process_pod_streaming_with_checkpoint_restore(tmp_path):
     for rc, out, err in outs:
         assert rc == 0, err.decode()[-3000:]
 
-    from rsp_chains_tpu import (
+    from rsp_chains import (
         CfarConfig, ChainConfig, FftConfig, RuntimeConfig, fft_mag_cfar_chain,
     )
-    from rsp_chains_tpu.cplx import as_pair
-    from rsp_chains_tpu.golden import three_tone_signal
+    from rsp_chains.cplx import as_pair
+    from rsp_chains.golden import three_tone_signal
 
     cfg = ChainConfig(
         fft=FftConfig(max_size=256),

@@ -1,20 +1,20 @@
-"""Device-path purity: the target TPU runtime rejects complex dtypes outright
-(even transfers), so every TPU entry point must lower to a program with NO
+"""Device-path purity: the device representation of complex values is the
+real pair (``cplx.C``), so every entry point must lower to a program with NO
 complex type anywhere — inputs, constants, intermediates, or outputs. The
-pair representation (cplx.C) must be airtight end to end."""
+pair representation must be airtight end to end."""
 
 import jax
 import numpy as np
 import pytest
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     CfarConfig, CfarVariant, ChainConfig, DopplerConfig, FftConfig,
     MatchedFilterConfig, RuntimeConfig,
     fft_mag_cfar_chain, range_doppler_chain, rsp_chain_vanilla,
     rx_fft_mag_cfar_tx_chain, chain_with_mem,
 )
-from rsp_chains_tpu.cplx import as_pair
-from rsp_chains_tpu.golden import lfm_chirp, three_tone_signal
+from rsp_chains.cplx import as_pair
+from rsp_chains.golden import lfm_chirp, three_tone_signal
 
 
 def _assert_no_complex(fn, *args):
@@ -80,17 +80,18 @@ def test_graft_entry_flagship():
 
 
 def test_pallas_fused_chain():
+    """The CA-only elaboration of the whole chain."""
     cfg = ChainConfig(fft=FftConfig(max_size=1024),
                       cfar=CfarConfig(max_ref_window=64, variant=CfarVariant.CA,
-                                      include_cash=False, use_pallas=True))
+                                      include_cash=False))
     chain = fft_mag_cfar_chain(cfg)
     x = as_pair(three_tone_signal(1024, shift_range_factor=12))
     _assert_no_complex(chain.__call__, x, _rt())
 
 
 def test_sharded_rd_pipeline():
-    from rsp_chains_tpu.parallel import make_mesh
-    from rsp_chains_tpu.parallel.sharded import make_sharded_rd_pipeline
+    from rsp_chains.parallel import make_mesh
+    from rsp_chains.parallel.sharded import make_sharded_rd_pipeline
 
     mesh = make_mesh(channels=2, range_shards=2)
     chirp = lfm_chirp(64)

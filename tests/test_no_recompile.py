@@ -1,26 +1,23 @@
 """The control-plane contract: runtime register changes never recompile.
 
-This is the TPU analog of the reference's AXI4 register writes — reconfiguring a
+This is the analog of the reference's AXI4 register writes — reconfiguring a
 running chain must be as cheap as a bus write, not a re-elaboration (SURVEY §L3)."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     ChainConfig, CfarAlgorithm, CfarConfig, CfarMode, CfarVariant, FftConfig,
     MagMode, RuntimeConfig, fft_mag_cfar_chain,
 )
-from rsp_chains_tpu.golden import three_tone_signal
+from rsp_chains.golden import three_tone_signal
 
 
 def test_full_register_sweep_single_compile():
     cfg = ChainConfig(
         fft=FftConfig(max_size=1024),
-        # contract test for the register plumbing: use the XLA path (the
-        # interpret-mode Pallas kernels are separately swept in test_pallas and
-        # are prohibitively slow for a 13-config sweep on CPU)
         cfar=CfarConfig(max_ref_window=64, variant=CfarVariant.GOSCA,
-                        include_cash=True, use_pallas=False),
+                        include_cash=True),
     )
     chain = fft_mag_cfar_chain(cfg)
     f = chain.jit()

@@ -4,7 +4,7 @@ CFAR output words (RspChainVanillaTester.scala:164-172)."""
 import numpy as np
 import jax.numpy as jnp
 
-from rsp_chains_tpu import packing
+from rsp_chains import packing
 
 
 def test_iq_roundtrip(rng):

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     CfarConfig,
     CfarVariant,
     ChainConfig,
@@ -15,10 +15,10 @@ from rsp_chains_tpu import (
     MatchedFilterConfig,
     RuntimeConfig,
 )
-from rsp_chains_tpu.cplx import as_pair
-from rsp_chains_tpu.golden import chirp_with_targets, lfm_chirp
-from rsp_chains_tpu.ops.beamform import ula_steering
-from rsp_chains_tpu.presets import beamformed_rd_chain, integrated_search_chain
+from rsp_chains.cplx import as_pair
+from rsp_chains.golden import chirp_with_targets, lfm_chirp
+from rsp_chains.ops.beamform import ula_steering
+from rsp_chains.presets import beamformed_rd_chain, integrated_search_chain
 
 P, N = 16, 256
 TAPS = lfm_chirp(32, 0.0, 0.25)
@@ -66,10 +66,10 @@ def test_beamformed_rd_target_lands_in_expected_beam():
 
 
 def test_integrated_search_noncoherent_matches_manual_composition():
-    from rsp_chains_tpu.ops.cfar import cfar_op
-    from rsp_chains_tpu.ops.integrate import noncoherent_integration
-    from rsp_chains_tpu.ops.logmag import logmag
-    from rsp_chains_tpu.ops.matched_filter import matched_filter
+    from rsp_chains.ops.cfar import cfar_op
+    from rsp_chains.ops.integrate import noncoherent_integration
+    from rsp_chains.ops.logmag import logmag
+    from rsp_chains.ops.matched_filter import matched_filter
 
     cfg = _cfg()
     chain = integrated_search_chain(cfg, taps=TAPS, mode="noncoherent")
@@ -110,10 +110,10 @@ def test_integrated_search_binary_m_of_n():
     assert pk.shape == (N,)
     assert pk[80]
 
-    from rsp_chains_tpu.ops.cfar import cfar_op
-    from rsp_chains_tpu.ops.integrate import binary_integration
-    from rsp_chains_tpu.ops.logmag import logmag
-    from rsp_chains_tpu.ops.matched_filter import matched_filter
+    from rsp_chains.ops.cfar import cfar_op
+    from rsp_chains.ops.integrate import binary_integration
+    from rsp_chains.ops.logmag import logmag
+    from rsp_chains.ops.matched_filter import matched_filter
 
     m = logmag(matched_filter(as_pair(cpi), TAPS, cfg.matched_filter),
                rt.mag_mode, cfg.mag)
@@ -133,7 +133,7 @@ def test_integrated_search_coherent_mode_runs():
 @pytest.mark.slow
 def test_compact_detections_through_cli_run_top_k(capsys):
     """The --top-k serving egress path end to end through the CLI."""
-    from rsp_chains_tpu import cli
+    from rsp_chains import cli
 
     rc = cli.main(["run", "--preset", "fft_mag_cfar", "--top-k", "8"])
     assert rc == 0
@@ -144,7 +144,7 @@ def test_compact_detections_through_cli_run_top_k(capsys):
 def test_cli_register_value_parsing():
     """REG=VAL values: ints stay ints, floats and scientific notation parse
     (``threshold_scaler=1e3`` used to crash on the dot-sniffing int path)."""
-    from rsp_chains_tpu.cli import _reg_value, _runtime
+    from rsp_chains.cli import _reg_value, _runtime
 
     assert _reg_value("32") == 32 and isinstance(_reg_value("32"), int)
     assert _reg_value("3.5") == 3.5
@@ -160,10 +160,10 @@ def test_cli_plot_covers_every_preset(tmp_path, monkeypatch):
     generic 1-D branch: wire-format (packed words out), real-ADC (real frames
     in, N/2 bins out), and the 2-D CPI presets. Small elaborations via a
     patched ``_build_chain`` — the default 8ch x 256p x 1024bin beamformed
-    CPI through interpret-mode Pallas is the suite's hot spot (CLAUDE.md)."""
-    from rsp_chains_tpu import cli
-    from rsp_chains_tpu import presets as P
-    from rsp_chains_tpu.configs import (
+    CPI is too large for the CPU suite."""
+    from rsp_chains import cli
+    from rsp_chains import presets as P
+    from rsp_chains.configs import (
         CfarConfig, ChainConfig, DopplerConfig, FftConfig, MatchedFilterConfig,
     )
 
@@ -198,13 +198,13 @@ def test_cli_plot_covers_every_preset(tmp_path, monkeypatch):
 
 
 def test_rx_rd_tx_wire_format_round_trip():
-    """Packed beat words [.., P, N] -> fused RD chain -> packed CFAR words:
+    """Packed beat words [.., P, N] -> RD chain -> packed CFAR words:
     decoded thresholds/peaks equal the float RD chain on the same int16 CPI."""
-    from rsp_chains_tpu import packing
-    from rsp_chains_tpu.presets import range_doppler_chain, rx_rd_tx_chain
+    from rsp_chains import packing
+    from rsp_chains.presets import range_doppler_chain, rx_rd_tx_chain
 
-    from rsp_chains_tpu.cplx import C
-    from rsp_chains_tpu.io import native
+    from rsp_chains.cplx import C
+    from rsp_chains.io import native
 
     cfg = _cfg()
     rng = np.random.RandomState(12)
@@ -256,17 +256,17 @@ def test_range_doppler_no_mf_config_means_no_filter(rng):
     explicit taps without an elaborated MF config are rejected."""
     import dataclasses
 
-    from rsp_chains_tpu.ops.doppler import doppler_fft
-    from rsp_chains_tpu.ops.cfar import cfar_op
-    from rsp_chains_tpu.ops.logmag import logmag
-    from rsp_chains_tpu.presets import range_doppler_chain
+    from rsp_chains.ops.doppler import doppler_fft
+    from rsp_chains.ops.cfar import cfar_op
+    from rsp_chains.ops.logmag import logmag
+    from rsp_chains.presets import range_doppler_chain
 
     cfg = dataclasses.replace(_cfg(), matched_filter=None)
     with pytest.raises(ValueError, match="matched_filter is None"):
         range_doppler_chain(cfg, taps=TAPS)
 
     chain = range_doppler_chain(cfg)
-    assert not any("matched" in s or s == "rd_fused" for s in chain.stage_names)
+    assert not any("matched" in s for s in chain.stage_names)
     x = (rng.randn(1, P, N) + 1j * rng.randn(1, P, N)).astype(np.complex64)
     rt = _rt()
     got = chain.jit()(as_pair(x), rt)
@@ -278,38 +278,48 @@ def test_range_doppler_no_mf_config_means_no_filter(rng):
 
 
 def test_rd_fusable_rejects_overlarge_cfar_pad(rng):
-    """Elaborations whose CFAR windows exceed the kernel's circular-pad bound
-    must fall back to the XLA stages instead of crashing at call time."""
+    """Elaborations whose CFAR windows exceed the roll paths' 128-cell pad
+    (the gather windows take over) build and run the RD chain, equal to the
+    stage composition."""
     import dataclasses
 
-    from rsp_chains_tpu.configs import CfarConfig, CfarVariant
-    from rsp_chains_tpu.kernels.rd_pallas import rd_fusable
-    from rsp_chains_tpu.presets import range_doppler_chain
+    from rsp_chains.configs import CfarConfig, CfarVariant
+    from rsp_chains.ops.cfar import cfar_op
+    from rsp_chains.ops.doppler import doppler_fft
+    from rsp_chains.ops.logmag import logmag
+    from rsp_chains.ops.matched_filter import matched_filter
+    from rsp_chains.presets import range_doppler_chain
 
     big = CfarConfig(max_ref_window=128, max_guard_window=8, max_fft_size=N,
                      variant=CfarVariant.CA, include_cash=False)
     cfg = dataclasses.replace(_cfg(), cfar=big)
-    assert not rd_fusable(cfg, np.asarray(TAPS))
     chain = range_doppler_chain(cfg, taps=TAPS)
-    assert "rd_fused" not in chain.stage_names
+    assert chain.stage_names == ("matched_filter", "doppler_fft", "logmag",
+                                 "cfar")
     x = (rng.randn(1, P, N) + 1j * rng.randn(1, P, N)).astype(np.complex64)
-    out = chain.jit()(as_pair(x), _rt(ref_window_size=64))
+    rt = _rt(ref_window_size=64)
+    out = chain.jit()(as_pair(x), rt)
     assert np.asarray(out.threshold).shape == (1, P, N)
+    rd = doppler_fft(matched_filter(as_pair(x), TAPS, cfg.matched_filter),
+                     cfg.doppler)
+    want = cfar_op(logmag(rd, rt.mag_mode), rt, cfg.cfar)
+    np.testing.assert_allclose(np.asarray(out.threshold),
+                               np.asarray(want.threshold), rtol=1e-4, atol=1e-5)
 
 
 def test_real_rx_chain_honors_sqrt_n_scaling_and_rejects_window(rng):
     import dataclasses
 
-    from rsp_chains_tpu import ChainConfig, FftConfig, RuntimeConfig
-    from rsp_chains_tpu.configs import CfarConfig, CfarVariant, FftScaling
-    from rsp_chains_tpu.presets import real_rx_chain
+    from rsp_chains import ChainConfig, FftConfig, RuntimeConfig
+    from rsp_chains.configs import CfarConfig, CfarVariant, FftScaling
+    from rsp_chains.presets import real_rx_chain
 
     n = 512
     base = ChainConfig(
         fft=FftConfig(max_size=n, scaling=FftScaling.SQRT_N),
         cfar=CfarConfig(max_ref_window=16, max_guard_window=4,
                         max_fft_size=n // 2, variant=CfarVariant.CA,
-                        include_cash=False, use_pallas=False))
+                        include_cash=False))
     with pytest.raises(ValueError, match="window"):
         real_rx_chain(dataclasses.replace(
             base, fft=dataclasses.replace(base.fft, window="hann")))
@@ -327,7 +337,7 @@ def test_real_rx_chain_honors_sqrt_n_scaling_and_rejects_window(rng):
     got = chain.jit()(x, rt)
     # golden: one-sided sqrt(N)-scaled spectrum magnitude drives the CFAR
     spec = np.fft.fft(x, axis=-1)[:, : n // 2] / np.sqrt(n)
-    from rsp_chains_tpu.golden import cfar_golden, jpl_mag
+    from rsp_chains.golden import cfar_golden, jpl_mag
 
     mag = jpl_mag(spec)
     thr_g = np.stack([cfar_golden(mag[i], ref_window=8, guard_window=2,
@@ -340,8 +350,8 @@ def test_real_rx_chain_honors_sqrt_n_scaling_and_rejects_window(rng):
 def test_cli_rd_2d_preset_run_and_plot(tmp_path, monkeypatch):
     """The 2-D map detector is CLI-reachable: ``run/plot --preset rd_2d``
     with --set2d register overrides (small elaboration via patched builder)."""
-    from rsp_chains_tpu import cli
-    from rsp_chains_tpu.configs import (
+    from rsp_chains import cli
+    from rsp_chains.configs import (
         ChainConfig, DopplerConfig, FftConfig, MatchedFilterConfig,
     )
 
@@ -349,7 +359,7 @@ def test_cli_rd_2d_preset_run_and_plot(tmp_path, monkeypatch):
 
     def small_init(self, set2d):
         real_init(self, set2d)
-        from rsp_chains_tpu.ops.cfar_2d import Cfar2dConfig, rd_2d_cfar_chain
+        from rsp_chains.ops.cfar_2d import Cfar2dConfig, rd_2d_cfar_chain
 
         self.cfg = ChainConfig(
             fft=FftConfig(max_size=256),

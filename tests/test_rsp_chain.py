@@ -8,14 +8,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     ChainConfig, CfarConfig, CfarVariant, FftConfig, NcoConfig, RuntimeConfig,
     rsp_chain_vanilla,
 )
-from rsp_chains_tpu.ops.nco import nco
-from rsp_chains_tpu.ops.plfg import PlfgProgram, Segment, chirp_profile, lfm_program
-from rsp_chains_tpu.golden import nco_golden
-from rsp_chains_tpu.configs import PlfgConfig
+from rsp_chains.ops.nco import nco
+from rsp_chains.ops.plfg import PlfgProgram, Segment, chirp_profile, lfm_program
+from rsp_chains.golden import nco_golden
+from rsp_chains.configs import PlfgConfig
 
 
 def _cfg():
@@ -156,7 +156,7 @@ def test_runtime_plfg_reprogramming_no_recompile():
     (RspChainVanillaTester.scala:86-94). The compiled profile rides
     ``rt.plfg_profile`` as a traced operand: two different programs through
     ONE executable, and the peak-bin contract holds for each."""
-    from rsp_chains_tpu.ops.plfg import compile_program
+    from rsp_chains.ops.plfg import compile_program
 
     cfg = _cfg()
     n = cfg.fft.max_size

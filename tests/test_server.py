@@ -5,13 +5,13 @@ import json
 import numpy as np
 import jax.numpy as jnp
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     ChainConfig, CfarConfig, CfarVariant, FftConfig, RuntimeConfig,
     fft_mag_cfar_chain, packing,
 )
-from rsp_chains_tpu.golden import three_tone_signal
-from rsp_chains_tpu.io import framing
-from rsp_chains_tpu.io.server import ChainServer, request_frames
+from rsp_chains.golden import three_tone_signal
+from rsp_chains.io import framing
+from rsp_chains.io.server import ChainServer, request_frames
 
 
 def _server():

@@ -7,27 +7,25 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsp_chains_tpu import (
+from rsp_chains import (
     CfarAlgorithm, CfarConfig, CfarMode, CfarVariant, ChainConfig, DopplerConfig,
     FftConfig, MatchedFilterConfig, RuntimeConfig, fft_mag_cfar_chain,
 )
-from rsp_chains_tpu.golden import three_tone_signal, lfm_chirp
-from rsp_chains_tpu.ops.cfar import cfar_op
-from rsp_chains_tpu.ops.logmag import logmag
-from rsp_chains_tpu.parallel import (
+from rsp_chains.golden import three_tone_signal, lfm_chirp
+from rsp_chains.ops.cfar import cfar_op
+from rsp_chains.ops.logmag import logmag
+from rsp_chains.parallel import (
     make_mesh, make_sharded_pipeline, range_sharded_fir, range_sharded_mag_cfar,
     channel_sharded,
 )
-from rsp_chains_tpu.parallel.sharded import make_sharded_rd_pipeline
+from rsp_chains.parallel.sharded import make_sharded_rd_pipeline
 
 
 def _cfg(variant=CfarVariant.GOSCA, cash=True):
     return ChainConfig(
         fft=FftConfig(max_size=1024),
-        # sharding-equality tests exercise the XLA datapaths (the Pallas
-        # kernels are interpret-mode-slow on CPU and covered by test_pallas)
         cfar=CfarConfig(max_ref_window=64, max_guard_window=8, variant=variant,
-                        include_cash=cash, use_pallas=False),
+                        include_cash=cash),
     )
 
 
@@ -113,8 +111,7 @@ def test_sharded_rd_pipeline_runs_and_matches(mesh8):
         matched_filter=MatchedFilterConfig(num_taps=64, fft_size=n_range),
         doppler=DopplerConfig(num_pulses=p),
         cfar=CfarConfig(max_ref_window=64, max_guard_window=8,
-                        variant=CfarVariant.GOSCA, include_cash=True,
-                        use_pallas=False),
+                        variant=CfarVariant.GOSCA, include_cash=True),
     )
     rt = _rt(threshold_scaler=8.0)
     rng = np.random.RandomState(7)
@@ -123,7 +120,7 @@ def test_sharded_rd_pipeline_runs_and_matches(mesh8):
     pipe = make_sharded_rd_pipeline(cfg, mesh8, chirp)
     out_s = pipe(jnp.asarray(x), rt)
 
-    from rsp_chains_tpu import range_doppler_chain
+    from rsp_chains import range_doppler_chain
     out_u = range_doppler_chain(cfg, taps=chirp).jit()(jnp.asarray(x), rt)
     np.testing.assert_allclose(np.asarray(out_s.threshold),
                                np.asarray(out_u.threshold), rtol=1e-4, atol=1e-3)
@@ -144,7 +141,7 @@ def test_graft_entry_dryrun():
 def test_pod_mesh_cpi_sharding():
     """Multi-host scaffold on the virtual 8-device platform: (cpi, ch, rng)
     mesh; CPI blocks process independently and match unsharded output."""
-    from rsp_chains_tpu.parallel.multihost import make_pod_mesh, shard_cpi_stream
+    from rsp_chains.parallel.multihost import make_pod_mesh, shard_cpi_stream
 
     mesh = make_pod_mesh(time_blocks=2, channels=2, range_shards=2)
     assert mesh.axis_names == ("cpi", "ch", "rng")
@@ -165,11 +162,11 @@ def test_pod_mesh_cpi_sharding():
     np.testing.assert_array_equal(np.asarray(out.peaks), np.asarray(want.peaks))
 
 
-def _cfg_pallas(variant=CfarVariant.CA, cash=False, max_ref=64):
+def _cfg_small(variant=CfarVariant.CA, cash=False, max_ref=64):
     return ChainConfig(
         fft=FftConfig(max_size=1024),
         cfar=CfarConfig(max_ref_window=max_ref, max_guard_window=8,
-                        variant=variant, include_cash=cash, use_pallas=True),
+                        variant=variant, include_cash=cash),
     )
 
 
@@ -179,16 +176,13 @@ def _cfg_pallas(variant=CfarVariant.CA, cash=False, max_ref=64):
     dict(fft_size=512),  # runtime frame shrink across shard boundaries
 ])
 def test_range_sharded_fused_ca_tail_equals_unsharded(mesh8, rtkw):
-    """The sharded tail must route through the fused Pallas CA kernel (r1 ran
-    the 3.8 ms XLA datapath instead) and still equal the unsharded op."""
-    from rsp_chains_tpu.parallel.sharded import _fused_tail_local
-
-    cfg = _cfg_pallas()
-    assert _fused_tail_local(cfg, 256) is not None  # routing, not fallback
+    """The range-sharded CA tail (ppermute halo + cfar_halo_shard) equals
+    the unsharded op."""
+    cfg = _cfg_small()
     rt = _rt(**rtkw)
     rng = np.random.RandomState(3)
     spec = (rng.randn(2, 1024) + 1j * rng.randn(2, 1024)).astype(np.complex64)
-    from rsp_chains_tpu.cplx import as_pair
+    from rsp_chains.cplx import as_pair
 
     out_s = range_sharded_mag_cfar(cfg, mesh8)(as_pair(spec), rt)
     mag = logmag(jnp.asarray(spec), rt.mag_mode, cfg.mag)
@@ -200,17 +194,13 @@ def test_range_sharded_fused_ca_tail_equals_unsharded(mesh8, rtkw):
 
 @pytest.mark.slow
 def test_range_sharded_fused_gos_tail_equals_unsharded(mesh8):
-    """GOS elaboration: the sharded tail routes through the VMEM-sort kernel
-    (small window elaboration — interpret mode dominates suite time)."""
-    from rsp_chains_tpu.parallel.sharded import _fused_tail_local
-
-    cfg = _cfg_pallas(variant=CfarVariant.GOSCA, max_ref=8)
-    assert _fused_tail_local(cfg, 256) is not None
+    """GOS elaboration: the range-sharded GOS tail equals the unsharded op."""
+    cfg = _cfg_small(variant=CfarVariant.GOSCA, max_ref=8)
     rt = _rt(ref_window_size=8, guard_window_size=2, div_sum=3,
              cfar_algorithm=CfarAlgorithm.GOS, index_lagg=4, index_lead=4)
     rng = np.random.RandomState(4)
     spec = (rng.randn(1, 1024) + 1j * rng.randn(1, 1024)).astype(np.complex64)
-    from rsp_chains_tpu.cplx import as_pair
+    from rsp_chains.cplx import as_pair
 
     out_s = range_sharded_mag_cfar(cfg, mesh8)(as_pair(spec), rt)
     mag = logmag(jnp.asarray(spec), rt.mag_mode, cfg.mag)
@@ -221,9 +211,8 @@ def test_range_sharded_fused_gos_tail_equals_unsharded(mesh8):
 
 
 def test_channel_only_mesh_runs_whole_chain_kernel():
-    """A pure channel mesh (rng=1) with a chain-fusable CA elaboration runs
-    the single whole-chain kernel per shard — equal to the unsharded fused
-    chain (which routes through the same kernel)."""
+    """A pure channel mesh (rng=1) runs the whole chain per channel shard —
+    equal to the unsharded chain."""
     mesh = make_mesh(channels=8, range_shards=1)
     cfg = ChainConfig(
         fft=FftConfig(max_size=256),
@@ -239,7 +228,6 @@ def test_channel_only_mesh_runs_whole_chain_kernel():
     pipe = make_sharded_pipeline(cfg, mesh)
     out_s = pipe(jnp.asarray(iq), rt)
     chain = fft_mag_cfar_chain(cfg)
-    assert chain.stage_names == ("fft_mag_cfar_fused",)
     out_u = chain.jit()(jnp.asarray(iq), rt)
     np.testing.assert_allclose(np.asarray(out_s.threshold),
                                np.asarray(out_u.threshold),
@@ -253,8 +241,8 @@ def test_halo_wider_than_shard_raises(mesh8):
     neighbor's neighbor is needed); it must be a loud error."""
     import jax
 
-    from rsp_chains_tpu.parallel.halo import extend_with_halo
-    from rsp_chains_tpu.parallel.mesh import RANGE_AXIS
+    from rsp_chains.parallel.halo import extend_with_halo
+    from rsp_chains.parallel.mesh import RANGE_AXIS
     from jax.sharding import PartitionSpec as P
 
     x = jnp.ones((2, 256))

@@ -1,10 +1,10 @@
 """UART block analog: field-for-field register semantics vs
 `/root/reference/generators/uart/DSPBlockUART.scala` / `UARTCtrlRegs.scala` /
-`UARTTx.scala` / `UARTRx.scala` (see rsp_chains_tpu/io/uart.py)."""
+`UARTTx.scala` / `UARTRx.scala` (see rsp_chains/io/uart.py)."""
 
 import pytest
 
-from rsp_chains_tpu.io.uart import DspBlockUart, UartParams, UartRegs
+from rsp_chains.io.uart import DspBlockUart, UartParams, UartRegs
 
 
 def _loop(u: DspBlockUart, words):
